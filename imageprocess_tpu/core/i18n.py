@@ -16,7 +16,7 @@ LANG_CURRENT = DEFAULT_LANG
 
 STRINGS = {
     "ko": {
-        "app_title": "ImageProcess TPU — 형광 이미지 정량 분석",
+        "app_title": "ImageProcess — 형광 이미지 정량 분석",
         "run_start": "================= 실행 시작 =================",
         "run_end": "================= 실행 종료 =================",
         "log_no_ch": "[스킵] {stid} — 채널 없음",
@@ -95,7 +95,7 @@ STRINGS = {
         "cli_devices_error": "[오류] --devices {n} > 사용 가능 장치 {avail}개",
     },
     "en": {
-        "app_title": "ImageProcess TPU — fluorescence image quantification",
+        "app_title": "ImageProcess — fluorescence image quantification",
         "run_start": "================= Run start =================",
         "run_end": "================= Run end =================",
         "log_no_ch": "[SKIP] {stid} — no channels",

@@ -24,7 +24,6 @@ import zipfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-from PIL import Image
 
 
 # --- JSON polygon bundles ---------------------------------------------------
@@ -80,6 +79,8 @@ def load_mask_png(
 ) -> np.ndarray:
     """Binary mask (white = True), cropped/zero-padded to *img_shape* when
     given (Fluor_INT.py:427-440)."""
+    from PIL import Image
+
     with Image.open(png_path) as im:
         mask = np.array(im.convert("L")) > 0
     if img_shape is not None and mask.shape != tuple(img_shape):

@@ -3,7 +3,8 @@
 Decode path order:
 1. the native C++ LZW TIFF reader (``imageprocess_tpu.native``) when built —
    multi-threaded strip decode, zero Python in the inner loop;
-2. Pillow (handles LZW-compressed grayscale TIFFs).
+2. Pillow (handles LZW-compressed grayscale TIFFs), imported only when
+   the native tier cannot decode a file, and for writing.
 
 The reference reads via tifffile with a PIL fallback and squeezes >2-D pages
 by taking channel 0 (src/INT/Fluor_INT.py:350-368); FA_Analyzer instead picks
@@ -20,7 +21,6 @@ import os
 from typing import Literal
 
 import numpy as np
-from PIL import Image
 
 try:  # the optional native decode tier
     from imageprocess_tpu.native import decode_tiff as _native_decode
@@ -34,6 +34,8 @@ def read_tiff(path: str, page: int = 0) -> np.ndarray:
         arr = _native_decode(path, page)
         if arr is not None:
             return arr
+    from PIL import Image
+
     with Image.open(path) as im:
         try:
             im.seek(page)
@@ -71,7 +73,11 @@ def read_2d(
     return a.astype(dtype, copy=False)
 
 
-def _atomic_save(im: Image.Image, path: str, **kwargs) -> None:
+def _atomic_save(arr: np.ndarray, path: str, **kwargs) -> None:
+    from PIL import Image
+
+    im = (Image.fromarray(arr, mode="F") if arr.dtype == np.float32
+          else Image.fromarray(arr))
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     im.save(tmp, format="TIFF", **kwargs)
@@ -80,17 +86,17 @@ def _atomic_save(im: Image.Image, path: str, **kwargs) -> None:
 
 def write_tiff32(path: str, img: np.ndarray) -> None:
     """Float32 single-channel TIFF (analysis-grade output)."""
-    _atomic_save(Image.fromarray(np.asarray(img, dtype=np.float32), mode="F"), path)
+    _atomic_save(np.asarray(img, dtype=np.float32), path)
 
 
 def write_tiff16(path: str, img: np.ndarray) -> None:
     """Uint16 single-channel TIFF (preview-grade output)."""
-    _atomic_save(Image.fromarray(np.asarray(img, dtype=np.uint16)), path)
+    _atomic_save(np.asarray(img, dtype=np.uint16), path)
 
 
 def write_tiff8(path: str, img: np.ndarray) -> None:
     """Uint8 single-channel TIFF (e.g. ROI masks, 0/255)."""
-    _atomic_save(Image.fromarray(np.asarray(img, dtype=np.uint8)), path)
+    _atomic_save(np.asarray(img, dtype=np.uint8), path)
 
 
 def normalize_to_u16(

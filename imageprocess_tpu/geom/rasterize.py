@@ -32,7 +32,7 @@ Exactness: thresholds are first estimated with an f32 division, then
 *refined with exact integer cross-product comparisons*; for polygons on the
 half-integer grid (every contour-derived ROI in the reference data) all
 products stay below 2^24, so the f32 kernel is bit-exact — no f64 needed on
-TPU.
+the device.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Learned segmentation models — the TPU-native replacement for the
+"""Learned segmentation models — the JAX replacement for the
 reference's torch/Cellpose dependency (src/ROI_auto_drawer.py:17-31,
 203-248).
 
-``unet``: flax U-Net emitting a cell-probability map; ``train``: optax
+``unet``: plain-JAX U-Net emitting a cell-probability map; ``train``: optax
 training step, data-parallel over a device mesh; ``data``: synthetic and
 pseudo-label dataset generation; ``checkpoint``: orbax persistence."""
 

@@ -4,21 +4,20 @@ Loss = sigmoid BCE on the cellprob channel + Dice + L2 on the gradient
 head (Cellpose-style flow supervision).  ``make_sharded_train_step`` jits
 the FULL step (forward, loss, backward, optax update) with the batch axis
 sharded over a 1-D device mesh — pure data parallelism: XLA inserts the
-gradient all-reduce (psum) over ICI automatically from the sharding
-annotations.
+gradient all-reduce (psum) automatically from the sharding annotations.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable, Tuple
+from typing import Any, Callable, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax.training import train_state
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .unet import UNet
@@ -38,8 +37,32 @@ class TrainConfig:
     warmup_steps: int = 100
 
 
-class TrainState(train_state.TrainState):
-    pass
+@partial(jax.tree_util.register_dataclass,
+         data_fields=["step", "params", "opt_state"],
+         meta_fields=["apply_fn", "tx"])
+@dataclass(frozen=True)
+class TrainState:
+    """Parameters, optimizer state and step count as one pytree; the
+    forward function and the optax transformation ride along as static
+    metadata (the shape of flax's ``TrainState``)."""
+
+    step: Any
+    params: Any
+    opt_state: Any
+    apply_fn: Callable
+    tx: optax.GradientTransformation
+
+    @classmethod
+    def create(cls, *, apply_fn, params, tx) -> "TrainState":
+        return cls(step=jnp.zeros((), jnp.int32), params=params,
+                   opt_state=tx.init(params), apply_fn=apply_fn, tx=tx)
+
+    def apply_gradients(self, *, grads) -> "TrainState":
+        updates, opt_state = self.tx.update(grads, self.opt_state, self.params)
+        return dataclasses.replace(
+            self, step=self.step + 1,
+            params=optax.apply_updates(self.params, updates),
+            opt_state=opt_state)
 
 
 def create_train_state(cfg: TrainConfig, rng: jax.Array) -> TrainState:

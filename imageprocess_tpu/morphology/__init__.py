@@ -1,5 +1,5 @@
 """On-device binary morphology, connected components, distance transforms,
-region properties — the TPU-native replacement for the reference's
+region properties — the device replacement for the reference's
 scipy.ndimage / skimage.morphology / skimage.measure calls (SURVEY §2.2,
 "native-equivalent tier")."""
 

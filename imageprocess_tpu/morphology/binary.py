@@ -37,11 +37,14 @@ def disk(radius: int) -> np.ndarray:
 
 
 def _conv_count(img_f32: jnp.ndarray, se: jnp.ndarray) -> jnp.ndarray:
-    """#True neighbors under the footprint at each pixel (zero-padded)."""
+    """#True neighbors under the footprint at each pixel (zero-padded).
+    The counts must be exact, so the precision is pinned to full f32 and
+    a GPU never runs the convolution in TF32."""
     k = jnp.asarray(se, jnp.float32)[None, None]
     x = img_f32[None, None]
     out = jax.lax.conv_general_dilated(
-        x, k, window_strides=(1, 1), padding="SAME"
+        x, k, window_strides=(1, 1), padding="SAME",
+        precision=jax.lax.Precision.HIGHEST,
     )
     return out[0, 0]
 
@@ -58,10 +61,9 @@ def _dilate(img: jnp.ndarray, se_tuple) -> jnp.ndarray:
     by every True offset; grouping each SE row's True runs gives
     ``out = OR_rows vshift(window_max(img, run), dy)``.  One (1, w)
     reduce-window per DISTINCT run extent plus a vertical shift per row
-    — all VPU-friendly vector ops.  The single-channel 11x11
-    ``lax.conv`` this replaces ran at ~1/128 MXU lane utilization
-    (107 ms for disk(5) on a 3.1 Mpix frame on chip); the decomposition
-    is bit-exact (same union, border False both ways)."""
+    — plain vector ops, where the single-channel 11x11 ``lax.conv`` it
+    replaces fed one channel to a matrix unit; the decomposition is
+    bit-exact (same union, border False both ways)."""
     se = np.array(se_tuple, dtype=bool)
     ry, rx = se.shape[0] // 2, se.shape[1] // 2
     # collect per-row runs of True cells, grouped by horizontal extent

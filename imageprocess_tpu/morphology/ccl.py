@@ -57,7 +57,7 @@ def _neighbor_min(L: jnp.ndarray, sentinel, connectivity: int) -> jnp.ndarray:
 
 def _run_min(L: jnp.ndarray, fg: jnp.ndarray, sentinel, axis: int) -> jnp.ndarray:
     """Min-propagate labels within CONTIGUOUS foreground runs along *axis*
-    (segmented min-scan, forward + reverse).  Scans are vectorized TPU
+    (segmented min-scan, forward + reverse).  Scans are vectorized device
     primitives — propagating a label across an arbitrarily long straight
     run costs one O(log n) pass instead of one neighbor round per pixel,
     and involves none of the megapixel gathers that make pointer jumping

@@ -6,8 +6,12 @@ file uses an unsupported layout (caller falls back to PIL — see
 core.tiffio).  Classic TIFF and BigTIFF; stripped and tiled; none/LZW/
 Deflate/PackBits strips; predictor 2; either endianness.
 
-Build: ``make -C native`` (g++, no external deps).  If the shared library
-is missing, this module tries a one-time build when a compiler is present.
+Build: ``make -C native`` (g++, no external deps).  The first use builds
+the shared library from ``native/tiff_lzw.cpp`` when it is missing or
+older than that source, so the binary always matches the committed code.
+A failed build is reported (``RuntimeWarning`` with the compiler's
+stderr, also kept in :data:`build_error`) and the callers fall back to
+PIL.
 """
 
 from __future__ import annotations
@@ -16,29 +20,56 @@ import ctypes
 import os
 import subprocess
 import threading
+import warnings
 from typing import Optional
 
 import numpy as np
 
 _LIB_PATH = os.path.join(os.path.dirname(__file__), "libiptiff.so")
+_SRC = os.path.join(os.path.dirname(__file__), "..", "..", "native",
+                    "tiff_lzw.cpp")
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
+#: why the native library could not be built or loaded (compiler stderr
+#: or loader error), or None
+build_error: Optional[str] = None
+
+
+def _fail(msg: str) -> None:
+    global build_error
+    build_error = msg
+    warnings.warn(f"native TIFF decoder unavailable:\n{msg}", RuntimeWarning,
+                  stacklevel=3)
+
+
+def _stale() -> bool:
+    """Library missing, or older than the source it is built from."""
+    if not os.path.exists(_LIB_PATH):
+        return True
+    return (os.path.exists(_SRC)
+            and os.path.getmtime(_SRC) > os.path.getmtime(_LIB_PATH))
+
 
 def _try_build() -> None:
-    src_dir = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-    src = os.path.join(src_dir, "tiff_lzw.cpp")
-    if not os.path.exists(src):
+    """Compile the library next to this module.  Writes to a per-process
+    temporary name and renames, so concurrent first uses (test workers)
+    never load a half-written file."""
+    if not os.path.exists(_SRC):
         return
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
+           "-o", tmp, _SRC, "-lpthread", "-lz"]
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
-             "-o", _LIB_PATH, src, "-lpthread", "-lz"],
-            check=True, capture_output=True, timeout=120,
-        )
-    except Exception:
-        pass
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        _fail(f"{' '.join(cmd)}: {e}")
+        return
+    if p.returncode != 0:
+        _fail(f"{' '.join(cmd)} exited {p.returncode}:\n{p.stderr.strip()}")
+        return
+    os.replace(tmp, _LIB_PATH)
 
 
 def _bind(lib) -> bool:
@@ -57,27 +88,18 @@ def _load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH):
+        if _stale():
             _try_build()
         if not os.path.exists(_LIB_PATH):
             return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
+        except OSError as e:
+            _fail(f"loading {_LIB_PATH}: {e}")
             return None
         if not _bind(lib):
-            # stale binary predating a symbol: rebuild once and retry
-            try:
-                os.remove(_LIB_PATH)
-            except OSError:
-                return None
-            _try_build()
-            try:
-                lib = ctypes.CDLL(_LIB_PATH)
-            except OSError:
-                return None
-            if not _bind(lib):
-                return None
+            _fail(f"{_LIB_PATH} lacks symbols of the current source")
+            return None
         _lib = lib
         return _lib
 

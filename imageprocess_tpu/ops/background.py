@@ -34,8 +34,7 @@ def integral_masked_quantile(
 
     Bitwise-identical to sorting the float32-cast values: both order
     statistics are exact integers and the interpolation formula is the
-    same.  On TPU the scatter-add + cumsum is ~10x cheaper than a
-    megapixel sort, which dominated the full-frame intensity program."""
+    same, and the scatter-add + cumsum avoids a megapixel sort."""
     xi = jnp.clip(x.astype(jnp.int32), 0, U16_BINS - 1).ravel()
     hist = jnp.zeros((U16_BINS,), jnp.int32).at[xi].add(
         mask.ravel().astype(jnp.int32)

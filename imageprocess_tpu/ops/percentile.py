@@ -4,7 +4,7 @@
 quantile sits at position ``h = (n-1) * p / 100``; the result interpolates
 the order statistics at ``floor(h)`` and ``ceil(h)``.
 
-On TPU we run in float32, where computing ``h`` directly is inexact for
+On the device we run in float32, where computing ``h`` directly is inexact for
 megapixel ``n`` (rel error ~1e-7 of h ≈ O(1) absolute!), which can shift the
 chosen order statistic.  ``exact_quantile_pos`` instead computes
 ``k = floor(h)`` and the fractional weight *exactly* in int32 arithmetic for
@@ -32,7 +32,7 @@ def exact_quantile_pos(n, p1000) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """(k, g) with k = floor((n-1)*p1000/100000) and g the exact fractional
     remainder in [0, 1), all in int32-safe arithmetic for ANY int32 n
     (p1000 <= 100000, i.e. percentiles <= 100; broadcasts over array
-    p1000 — the Pallas kernels pass a per-lane column).
+    p1000, e.g. a per-lane column).
 
     Derivation: write n-1 = q*100000 + r and r = r1*1000 + r0.  Then
     (n-1)*p1000 = q*p1000*100000 + r*p1000 with

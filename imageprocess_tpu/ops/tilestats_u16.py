@@ -79,18 +79,13 @@ def tile_stats_u16(
     tiles: jnp.ndarray,     # (N, C, t, t) uint16 RAW tile pixels
     masks: jnp.ndarray,     # (N, t, t) bool (validity applied)
     bgs: jnp.ndarray,       # (C,) float32 background levels
-    order_stats: jnp.ndarray | None = None,  # (N, C, 6) precomputed (Pallas)
     *,
     clip_neg: bool = True,
     p_lo1000: int = 5000,
     p_hi1000: int = 95000,
 ) -> Dict[str, jnp.ndarray]:
     """All nine reference statistics of clip(x - bg)[mask] per (C, N),
-    numerically identical to masked_stats on the transformed tile.
-
-    ``order_stats`` lets a fused kernel (ops.pallas_tilestats) supply the
-    six raw-u16 order statistics; everything else (moments, transform,
-    interpolation) is single-pass XLA either way."""
+    numerically identical to masked_stats on the transformed tile."""
     N, C, t, _ = tiles.shape
     xf = tiles.astype(jnp.float32) - bgs[None, :, None, None]
     if clip_neg:
@@ -109,19 +104,15 @@ def tile_stats_u16(
 
     # six order-stat positions (p_lo, median, p_hi) x (k, k+1) per lane
     kgs = [exact_quantile_pos(n_nc, p) for p in (p_lo1000, 50000, p_hi1000)]
-    if order_stats is None:
-        nm1 = jnp.maximum(n_nc - 1, 0)
-        ks = jnp.stack(
-            [jnp.clip(k, 0, nm1) for k, _ in kgs]
-            + [jnp.clip(jnp.minimum(k + 1, nm1), 0, nm1) for k, _ in kgs],
-            axis=-1,
-        )                                                      # (N, C, 6)
-        xi = tiles.astype(jnp.int32).reshape(N, C, t * t)
-        mflat = jnp.broadcast_to(masks[:, None], (N, C, t, t)).reshape(
-            N, C, -1)
-        os6 = _order_stats_bisect(xi, mflat, ks)               # (N, C, 6)
-    else:
-        os6 = order_stats
+    nm1 = jnp.maximum(n_nc - 1, 0)
+    ks = jnp.stack(
+        [jnp.clip(k, 0, nm1) for k, _ in kgs]
+        + [jnp.clip(jnp.minimum(k + 1, nm1), 0, nm1) for k, _ in kgs],
+        axis=-1,
+    )                                                          # (N, C, 6)
+    xi = tiles.astype(jnp.int32).reshape(N, C, t * t)
+    mflat = jnp.broadcast_to(masks[:, None], (N, C, t, t)).reshape(N, C, -1)
+    os6 = _order_stats_bisect(xi, mflat, ks)                   # (N, C, 6)
 
     # transform raw order stats, then interpolate (same as sorting the
     # transformed values: the transform is monotone nondecreasing)

@@ -44,8 +44,10 @@ def gaussian_blur(img: jnp.ndarray, sigma: float,
         pad[axis] = (r, r)
         xp = jnp.pad(x, pad, mode="symmetric")
         kk = k.reshape((-1, 1) if axis == 0 else (1, -1))
+        # f32 scipy parity: HIGHEST keeps a GPU from running it in TF32
         return jax.lax.conv_general_dilated(
-            xp[None, None], kk[None, None], (1, 1), "VALID"
+            xp[None, None], kk[None, None], (1, 1), "VALID",
+            precision=jax.lax.Precision.HIGHEST,
         )[0, 0]
 
     return conv1d(conv1d(img, 0), 1)
@@ -70,8 +72,11 @@ def sobel_magnitude(img: jnp.ndarray) -> jnp.ndarray:
     kx = jnp.asarray([[1, 0, -1], [2, 0, -2], [1, 0, -1]], jnp.float32) / 4.0
     ky = kx.T
     xp = jnp.pad(img, 1, mode="symmetric")[None, None]
-    gx = jax.lax.conv_general_dilated(xp, kx[None, None], (1, 1), "VALID")[0, 0]
-    gy = jax.lax.conv_general_dilated(xp, ky[None, None], (1, 1), "VALID")[0, 0]
+    hi = jax.lax.Precision.HIGHEST   # f32 skimage parity, no TF32 on a GPU
+    gx = jax.lax.conv_general_dilated(xp, kx[None, None], (1, 1), "VALID",
+                                      precision=hi)[0, 0]
+    gy = jax.lax.conv_general_dilated(xp, ky[None, None], (1, 1), "VALID",
+                                      precision=hi)[0, 0]
     return jnp.sqrt(gx * gx + gy * gy) / jnp.sqrt(2.0)
 
 

@@ -1,7 +1,7 @@
 """Spatial sharding of a single large FOV across the device mesh.
 
-SURVEY §2.3 documents this as the honest TPU extension beyond the
-reference's data parallelism: when one frame exceeds per-chip HBM (or when
+SURVEY §2.3 documents this as an extension beyond the reference's data
+parallelism: when one frame exceeds one device's memory (or when
 latency on a single frame matters), shard the ROW axis over the mesh and
 run the frame-level ops with explicit collectives:
 
@@ -9,7 +9,7 @@ run the frame-level ops with explicit collectives:
   histograms + ``psum`` (one all-reduce of 256 KB), then an exact order
   statistic with np.percentile interpolation — no gather of pixel data;
 - neighborhood ops (square dilation / erosion windows): halo exchange of
-  boundary rows with ``ppermute`` over ICI, then local reduce-windows;
+  boundary rows with ``ppermute``, then local reduce-windows;
 - background-correct: pure elementwise after the psum (no communication).
 
 All functions are ``shard_map``-ed over a 1-D mesh and jit-compiled; tests

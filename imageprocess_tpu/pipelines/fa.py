@@ -200,28 +200,6 @@ def unpack_fa_flat(flat: np.ndarray, nb: int, max_labels: int):
     return props, n_labels, scal, over
 
 
-def sharded_fa_batched_step(mesh, *, tile, close_radius, max_labels,
-                            do_remove_small):
-    """fa_batched_step with its frame axis sharded over *mesh* — DP over
-    stages across chips, the FA analogue of the intensity/FRET sharded
-    tables programs (replacing the reference's serial batch loop,
-    FA_Analyzer.py:939-1052)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    axis = mesh.axis_names[0]
-    shard = NamedSharding(mesh, P(axis))
-    repl = NamedSharding(mesh, P())
-
-    def f(imgs, lp, off, val, alpha, min_px):
-        return fa_batched_step(
-            imgs, lp, off, val, alpha, min_px, tile=tile,
-            close_radius=close_radius, max_labels=max_labels,
-            do_remove_small=do_remove_small)
-
-    return jax.jit(f, in_shardings=(shard, shard, shard, shard, repl, repl),
-                   out_shardings=shard)
-
-
 def analyze_image(
     img: np.ndarray,
     rois: List[np.ndarray],
@@ -421,13 +399,13 @@ def run_fa_batched(
     """Streaming batched FA tables (same outputs as :func:`run_fa_batch`):
     prefetch-thread decode overlaps device compute, frames chunk into ONE
     fused dispatch (global stats + threshold + per-cell chain,
-    :func:`fa_batched_step`), optionally sharded over a ``Mesh`` — the
-    TPU-first replacement for the reference's serial batch loop
+    :func:`fa_batched_step`), optionally split over a ``Mesh``'s devices
+    — the device replacement for the reference's serial batch loop
     (FA_Analyzer.py:939-1052).  Stages whose frame shape or ROI geometry
     falls outside the session hints drop to the per-image path inline."""
     from ..ops.roistats import choose_tile, pad_local_polys, tile_offsets
     from ..parallel.runner import (
-        EmitFetchError, PrefetchLoader, round_batch_to_mesh,
+        EmitFetchError, PrefetchLoader, per_device, round_batch_to_mesh,
         stream_batches,
     )
 
@@ -461,12 +439,13 @@ def run_fa_batched(
     def step_for(tile, nb, vb):
         key = (tile, nb, vb)
         if key not in step_cache:
-            kw = dict(tile=tile, close_radius=int(cfg.close_radius),
-                      max_labels=cfg.max_fa_per_cell,
-                      do_remove_small=cfg.min_px > 0)
-            step_cache[key] = (sharded_fa_batched_step(mesh, **kw)
-                               if mesh is not None
-                               else partial(fa_batched_step, **kw))
+            step = partial(fa_batched_step, alpha=jnp.float32(cfg.alpha),
+                           min_px=jnp.float32(cfg.min_px), tile=tile,
+                           close_radius=int(cfg.close_radius),
+                           max_labels=cfg.max_fa_per_cell,
+                           do_remove_small=cfg.min_px > 0)
+            step_cache[key] = (per_device(step, mesh) if mesh is not None
+                               else step)
         return step_cache[key]
 
     def _write_stage(s_tag, file_rows):
@@ -522,8 +501,7 @@ def run_fa_batched(
             lp_b[bi], off_b[bi], val_b[bi] = lp, off_pad, valid
         flat = step_for(tile, nb, vb)(
             jnp.asarray(imgs_b), jnp.asarray(lp_b), jnp.asarray(off_b),
-            jnp.asarray(val_b), jnp.float32(cfg.alpha),
-            jnp.float32(cfg.min_px))
+            jnp.asarray(val_b))
         try:
             # start the device->host result copy while the next chunk decodes
             flat.copy_to_host_async()

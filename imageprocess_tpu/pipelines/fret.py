@@ -465,7 +465,8 @@ def batched_fret_tile_stats(
 ):
     """Per-ROI stats over [ratio, donor_bc, acceptor_bc] from host-gathered
     tiles — the FRET analogue of the intensity minimum-transfer path: the
-    megapixel ratio frame never exists; only ROI tiles cross the link."""
+    megapixel ratio frame never exists; only ROI tiles cross the link.
+    Frames run in a loop (runner.MIN_DISPATCH_FRAMES)."""
 
     def one(tl, lpb, vb, bg, e):
         t_ = tl.shape[-1]
@@ -487,24 +488,18 @@ def batched_fret_tile_stats(
         area = masks.sum(axis=(1, 2)).astype(jnp.int32)
         return stats, area
 
-    return jax.vmap(one)(tiles, local_polys, roi_valid, bgs, eps)
+    return jax.lax.map(lambda a: one(*a),
+                       (tiles, local_polys, roi_valid, bgs, eps))
 
 
 def sharded_batched_fret_tile_stats(mesh, *, clip_neg=True, flip=False):
-    """batched_fret_tile_stats with its batch axis sharded over *mesh* —
-    data parallelism over (stage, time) pairs across chips (the FRET
-    analogue of runner.sharded_batched_tile_stats)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
+    """batched_fret_tile_stats with its batch axis split over *mesh*'s
+    devices — data parallelism over (stage, time) pairs (the FRET analogue
+    of runner.sharded_batched_tile_stats)."""
+    from ..parallel.runner import per_device
 
-    axis = mesh.axis_names[0]
-    shard = NamedSharding(mesh, P(axis))
-
-    def f(tiles, lp, valid, bgs, eps):
-        return batched_fret_tile_stats(tiles, lp, valid, bgs, eps,
-                                       clip_neg=clip_neg, flip=flip)
-
-    return jax.jit(f, in_shardings=(shard,) * 5,
-                   out_shardings=(shard, shard))
+    return per_device(partial(batched_fret_tile_stats, clip_neg=clip_neg,
+                              flip=flip), mesh)
 
 
 def run_fret_batched(
@@ -526,7 +521,7 @@ def run_fret_batched(
     from ..ops.roistats import choose_tile, gather_tiles, pad_local_polys, tile_offsets
     from ..ops.stats import STAT_FIELDS
     from ..parallel.runner import (
-        EmitFetchError, PrefetchLoader, make_autoscaler,
+        EmitFetchError, PrefetchLoader, make_autoscaler, min_batch,
         round_batch_to_mesh, stream_batches,
     )
     from ..report.excel import save_fret_excel
@@ -703,8 +698,8 @@ def run_fret_batched(
         tile_step = sharded_batched_fret_tile_stats(
             mesh, clip_neg=cfg.clip_neg, flip=flip)
     else:
-        tile_step = partial(batched_fret_tile_stats,
-                            clip_neg=cfg.clip_neg, flip=flip)
+        tile_step = min_batch(partial(batched_fret_tile_stats,
+                                      clip_neg=cfg.clip_neg, flip=flip))
 
     _cur_bs, _maybe_grow_chunk = make_autoscaler(loader, batch_size)
 

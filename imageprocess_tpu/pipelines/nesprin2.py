@@ -12,7 +12,7 @@ its i18n *function object* into the "time" column when timelapse=True
 (``(t if timelapse else None)``, :1542 — ``t`` is the translator, shadowing
 the time code).  We write the actual time code instead.
 
-TPU design: saturation QC, background, spectral correction, both ratio
+Device design: saturation QC, background, spectral correction, both ratio
 orientations, the EDT rim mask and ALL per-ROI work (annulus medians,
 re-ratio, masked stats) run in one jitted program; the per-ROI stage is
 vmapped over the padded ROI axis.
@@ -292,8 +292,9 @@ def make_nesprin2_batched_step(cfg: "Nesprin2Config", *, has_aonly: bool,
     (B, K) table array.  This is a minimum-FETCH path (nothing image-sized
     comes BACK over the link) — unlike intensity/FRET it must still UPLOAD
     full frames, because the rim EDT and the eps scope need the whole
-    union mask.  Optionally sharded over *mesh* (DP over pairs, the
-    nesprin2 analogue of the intensity/FRET/FA sharded runners)."""
+    union mask.  Optionally split over *mesh*'s devices (DP over pairs,
+    :func:`parallel.runner.per_device`, as the intensity/FRET/FA
+    runners)."""
     flip = cfg.ratio_mode != "FRET/Donor"
     d_p = cfg.donor_p if cfg.per_channel_p else cfg.percentile
     a_p = cfg.fret_p if cfg.per_channel_p else cfg.percentile
@@ -322,13 +323,12 @@ def make_nesprin2_batched_step(cfg: "Nesprin2Config", *, has_aonly: bool,
         return jnp.concatenate(
             [jnp.stack(cols, 0).ravel(), eps[None]])
 
-    fn = jax.vmap(one)
+    fn = jax.jit(jax.vmap(one))
     if mesh is None:
-        return jax.jit(fn)
-    from jax.sharding import NamedSharding, PartitionSpec as P
+        return fn
+    from ..parallel.runner import per_device
 
-    shard = NamedSharding(mesh, P(mesh.axis_names[0]))
-    return jax.jit(fn, in_shardings=(shard,) * 7, out_shardings=shard)
+    return per_device(fn, mesh)
 
 
 def unpack_n2_flat(flat: np.ndarray, nb: int):
@@ -529,7 +529,7 @@ def run_nesprin2_batched(
     chunk of pairs per fused dispatch (the FULL device chain — QC,
     backgrounds, spectral, eps, EDT rim, annulus local-BG, tiled per-ROI
     stats — vmapped over pairs, :func:`make_nesprin2_batched_step`),
-    optionally sharded over a ``Mesh``.  Rows identical to
+    optionally split over a ``Mesh``'s devices.  Rows identical to
     :func:`run_nesprin2`; image outputs fall back to the serial runner."""
     if cfg.do_tif or cfg.do_png:
         # image outputs render host-side per pair (94% of that wall is the

@@ -1,9 +1,9 @@
 """Host-side report writers: CSV/XLSX tables, PNG/TIFF image exports,
-PPTX decks.  These consume device results; nothing here runs on TPU.
+PPTX decks.  These consume device results; nothing here runs on the device.
 
 ``render`` (matplotlib) loads lazily: tables-only pipelines import this
 package for the excel writers, and an eager render import would tax every
-such run with ~1.2 s of matplotlib setup on a 1-core host.
+such run with matplotlib setup.
 """
 
 from . import excel  # noqa: F401

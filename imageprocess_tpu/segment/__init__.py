@@ -1,5 +1,5 @@
 """Segmentation: interactive in-polygon refinement (the drawer's core) and
-batch automatic full-frame segmentation (the TPU-native ROI_auto path, with
+batch automatic full-frame segmentation (the device ROI_auto path, with
 an optional Cellpose escape hatch)."""
 
 from .autoseg import segment_inside_polygon  # noqa: F401

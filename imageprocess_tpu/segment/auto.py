@@ -5,7 +5,7 @@ converts label masks to polygon JSONs via cv2 external contours with an
 area >= 20 px filter (:298-310), writing the drawer's ROI JSON format with
 a ``generated_by`` tag (:255-262).
 
-TPU-native default path (BASELINE.json config 3: "automatic
+Default device path (BASELINE.json config 3: "automatic
 threshold+morphology segmentation on a multi-cell field of view"): one
 jitted full-frame program — Gaussian smooth, threshold (percentile or
 mu + k*sigma), morphological open/close, hole filling, small-object
@@ -17,6 +17,7 @@ package is importable (it is not part of this environment).
 from __future__ import annotations
 
 import os
+from collections import deque
 from dataclasses import dataclass
 from functools import partial
 from typing import List, Optional
@@ -73,7 +74,7 @@ class AutoSegConfig:
     checkpoint: Optional[str] = None   # None -> bundled pretrained
     prob_threshold: float = 0.5
     flow_follow: bool = True           # Cellpose-style instance separation
-    devices: int = 1                   # >1: shard the tile batch over a mesh
+    devices: int = 1                   # >1: frames spread over N devices
     # cellpose backend
     diameter: Optional[float] = None
     model_type: str = "cyto3"
@@ -156,23 +157,50 @@ def _unet_model(cfg: AutoSegConfig):
     return _UNET_CACHE[ckpt]
 
 
+def _unet_kw(cfg: AutoSegConfig) -> dict:
+    return dict(prob_threshold=cfg.prob_threshold,
+                min_size_px=cfg.min_size_px, max_labels=cfg.max_labels,
+                flow_follow=cfg.flow_follow)
+
+
 def _unet_segment(img: np.ndarray, cfg: AutoSegConfig) -> List[np.ndarray]:
     """Learned path: bundled (or user) U-Net checkpoint -> tiled inference
     (segment.cellseg) -> polygons."""
     from .cellseg import segment_frame_unet
 
     apply_fn, params, tile = _unet_model(cfg)
-    mesh = None
-    if cfg.devices > 1:
-        from ..parallel.runner import make_mesh
+    return segment_frame_unet(img, apply_fn, params, tile=tile,
+                              min_poly_area=cfg.min_poly_area,
+                              **_unet_kw(cfg))
 
-        mesh = make_mesh(cfg.devices)
-    return segment_frame_unet(
-        img, apply_fn, params, tile=tile,
-        prob_threshold=cfg.prob_threshold, min_size_px=cfg.min_size_px,
-        max_labels=cfg.max_labels, min_poly_area=cfg.min_poly_area,
-        flow_follow=cfg.flow_follow, mesh=mesh,
-    )
+
+def _frame_starters(cfg: AutoSegConfig):
+    """One callable per device slot: ``start(img)`` begins segmenting a
+    frame and returns a callable that waits for its polygons.  The U-Net
+    backend with ``devices`` N > 1 gets one slot per device, each running
+    the single-device program with its own copy of the weights, so N
+    frames are in flight and every frame's polygons are the ones a
+    one-device run gives (the multi-device analog of the reference's
+    Cellpose GPU batching, ROI_auto_drawer.py:192-203,241)."""
+    if cfg.backend != "unet" or cfg.devices <= 1:
+        return [lambda img: partial(auto_segment_frame, img, cfg)]
+    from ..parallel.runner import make_mesh
+    from .cellseg import labels_to_polygons, segment_frame_labels
+
+    apply_fn, params, tile = _unet_model(cfg)
+
+    def slot(device):
+        p = jax.device_put(params, device)
+
+        def start(img):
+            out = segment_frame_labels(img, apply_fn, p, tile=tile,
+                                       device=device, **_unet_kw(cfg))
+            return partial(labels_to_polygons, out, cfg.max_labels,
+                           cfg.min_poly_area)
+
+        return start
+
+    return [slot(d) for d in make_mesh(cfg.devices).devices.flat]
 
 
 def auto_segment_frame(img: np.ndarray, cfg: AutoSegConfig) -> List[np.ndarray]:
@@ -240,6 +268,31 @@ def run_auto_drawer(
             ) from e
     files = naming.list_tifs(img_dir)
     written = []
+    gen = {
+        "cellpose": f"cellpose:{cfg.model_type}",
+        "unet": "imageprocess_tpu.unet",
+    }.get(cfg.backend, "imageprocess_tpu.auto_threshold")
+    starters = _frame_starters(cfg)
+    pending = deque()       # frames in flight, oldest first
+
+    def finish_oldest():
+        base, tag, shape, wait = pending.popleft()
+        try:
+            polys = wait()
+        except Exception as e:
+            log(t("auto_seg_failed").format(name=base, err=e))
+            return
+        log(t("auto_found").format(tag=tag, count=len(polys)))
+        if not polys:
+            # the reference writes NO file for 0-cell frames
+            # (ROI_auto_drawer.py:253-264) — downstream loops use file
+            # presence to mean "annotated"
+            return
+        out = os.path.join(roi_dir, f"{tag}.json")
+        roiio.save_roi_bundle(out, tag, shape, polys, generated_by=gen)
+        written.append(out)
+
+    n_started = 0
     for path in files:
         base = os.path.basename(path)
         k = naming.parse_tokens(base, cfg.timelapse, naming.ChannelGrammar.KEYWORD)
@@ -263,21 +316,14 @@ def run_auto_drawer(
             log(t("auto_blank_skip").format(name=base))
             continue
         try:
-            polys = auto_segment_frame(img, cfg)
+            wait = starters[n_started % len(starters)](img)
         except Exception as e:
             log(t("auto_seg_failed").format(name=base, err=e))
             continue
-        log(t("auto_found").format(tag=tag, count=len(polys)))
-        if not polys:
-            # the reference writes NO file for 0-cell frames
-            # (ROI_auto_drawer.py:253-264) — downstream loops use file
-            # presence to mean "annotated"
-            continue
-        out = os.path.join(roi_dir, f"{tag}.json")
-        gen = {
-            "cellpose": f"cellpose:{cfg.model_type}",
-            "unet": "imageprocess_tpu.unet",
-        }.get(cfg.backend, "imageprocess_tpu.auto_threshold")
-        roiio.save_roi_bundle(out, tag, img.shape, polys, generated_by=gen)
-        written.append(out)
+        n_started += 1
+        pending.append((base, tag, img.shape, wait))
+        if len(pending) >= len(starters):
+            finish_oldest()
+    while pending:
+        finish_oldest()
     return written

@@ -4,7 +4,7 @@ The reference's Cellpose backend separates touching cells by integrating
 each pixel along the network's center-pointing flow field and clustering
 the convergence points (Cellpose "follow_flows"; the torch/GPU path behind
 src/ROI_auto_drawer.py:241).  The rebuild's U-Net trains the same flow
-head (models/golden.py targets) — this module closes the loop on TPU:
+head (models/golden.py targets) — this module closes the loop on the device:
 
 1. :func:`follow_flows` — integrate every pixel's position along the
    bilinear-sampled flow field by SCALING AND SQUARING: build the
@@ -48,11 +48,9 @@ def _bilinear(F: jnp.ndarray, y: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """Bilinear sample of an (H, W) or (H, W, C) field at float (y, x),
     edge-clamped.
 
-    TPU-shaped: gathers are the slowest TPU primitive, so instead of four
-    corner gathers this packs the 2x2 neighborhood channel-wise
-    (:func:`_pack_corners`, cheap shifts) and reads all four taps of all
-    channels with ONE (1, 1, 4C) gather — measured 794 -> 189 ms for the
-    7-squaring megapixel composition on chip (4.2x).  Taps, weights and
+    Instead of four corner gathers this packs the 2x2 neighborhood
+    channel-wise (:func:`_pack_corners`, cheap shifts) and reads all four
+    taps of all channels with ONE (1, 1, 4C) gather.  Taps, weights and
     the interpolation expression are identical to the classic 4-gather
     form (same values in, same arithmetic)."""
     squeeze = F.ndim == 2
@@ -82,10 +80,9 @@ def follow_flows(flows: jnp.ndarray, n_iter: int = 120,
     vectors toward each cell's center).  Returns (H, W, 2) float landing
     positions after >= ``n_iter`` Euler steps of size *step* px.
 
-    TPU-shaped integration — scaling-and-squaring: gathers are the
-    slowest TPU primitive, and the direct lax.scan of ``n_iter``
-    sequential bilinear field samples measured ~30 s on a 2048x1536
-    frame (960 megapixel-gathers).  Instead, start from the one-step
+    Integration by scaling-and-squaring: the direct lax.scan of
+    ``n_iter`` sequential bilinear field samples is 960 megapixel
+    gathers on a 2048x1536 frame.  Instead, start from the one-step
     displacement field and square it ceil(log2(n_iter)) times
     (``D <- D + D(p + D(p))``, each squaring one bilinear sample of the
     accumulated displacement map): 7 compositions land every pixel 128
@@ -148,7 +145,7 @@ def flow_label(
 
     ``n_iter=120`` (7 squarings) is REQUIRED: n_iter=64 was tried (the
     golden frame holds at recall 1.0 / mIoU 0.917, and each squaring
-    costs ~110 ms of megapixel gathers on chip) but the generalist's
+    costs a round of megapixel gathers) but the generalist's
     DENSE-domain gate fails — touching-cell fields need the full
     integration length to separate.  32 also over-segments the golden
     frame (52 preds vs 43, mIoU 0.887).  Don't re-lower without passing

@@ -1,11 +1,11 @@
 // Multithreaded TIFF reader with LZW decompression — the native host-side
-// decode tier feeding the TPU pipelines.
+// decode tier feeding the device pipelines.
 //
 // The reference decodes 16-bit LZW microscopy TIFFs through
 // tifffile-with-PIL-fallback (src/INT/Fluor_INT.py:350-368), single-threaded
-// per file.  Sustaining the >=500 Mpix/s/chip end-to-end target
-// (BASELINE.md) needs strip-parallel native decode: each TIFF strip is an
-// independent LZW stream, so strips fan out across a thread pool.
+// per file.  Keeping the device fed end to end needs strip-parallel
+// native decode: each TIFF strip is an independent LZW stream, so strips
+// fan out across a thread pool.
 //
 // Scope: classic TIFF and BigTIFF (version 43), little/big endian,
 // grayscale 8/16-bit; compression 1 (none), 5 (LZW, TIFF variant: 9->12
